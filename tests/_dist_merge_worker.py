@@ -42,7 +42,7 @@ def main():
     from vgaligner_tpu.io.fastx import read_seqs_from_file
     from vgaligner_tpu.models.mapper import Mapper
 
-    g = graph_from_gfa("/root/reference/test/test.gfa")
+    g = graph_from_gfa(os.path.join(os.path.dirname(__file__), "data", "test.gfa"))
     index = Index.build(g, 11, 100, 100)
     queries = read_seqs_from_file(
         os.path.join(os.path.dirname(__file__), "golden", "path-window-reads.fa")

@@ -6,8 +6,12 @@ k-mer set equality between the Python and native index builders on
 test.gfa (k=11, r=4) — the VERDICT r3 task-6 criterion, minus the
 Rust-binary diff this image cannot run."""
 
+import os
+
 import numpy as np
 import pytest
+
+from conftest import DATA_DIR
 
 from vgaligner_tpu import native
 from vgaligner_tpu.utils.ahash import ahash07_str
@@ -99,7 +103,7 @@ def test_sampled_set_equality_test_gfa():
     from vgaligner_tpu.graph import graph_from_gfa
     from vgaligner_tpu.index import Index
 
-    g = graph_from_gfa("/root/reference/test/test.gfa")
+    g = graph_from_gfa(os.path.join(DATA_DIR, "test.gfa"))
     nat = Index.build(g, 11, 100, 100, sampling_rate=4)
     full = Index.build(g, 11, 100, 100)
     # the sampled set is exactly the hash-selected subset of the full set

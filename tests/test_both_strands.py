@@ -24,14 +24,14 @@ from vgaligner_tpu.io.fastx import QuerySequence
 from vgaligner_tpu.models.mapper import Mapper, chain_dp_score
 from vgaligner_tpu.utils.dna import reverse_complement
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 K = 11
 
 
 @pytest.fixture(scope="module")
 def index():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     return Index.build(g, K, 100, 100)
 
 

@@ -10,7 +10,7 @@ from vgaligner_tpu.io.fastx import QuerySequence
 from vgaligner_tpu.models.mapper import Mapper
 from vgaligner_tpu.ops.chain import chain_scores, make_gap_cost_table
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 from vgaligner_tpu.models.host_pipeline import HAnchor, chain_anchors_host, score_anchor, NEG
 
 
@@ -80,7 +80,7 @@ def test_device_dp_matches_host_reference(seed):
 def test_mapper_chains_on_test_gfa():
     """test_chains_2 analog (chain.rs:945-976): the forward linearization
     mapped against its own graph must produce non-empty chains."""
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     mapper = Mapper(index, chain_min_n_anchors=2)
     q = QuerySequence.from_string(index.seq_fwd)
@@ -94,7 +94,7 @@ def test_mapper_chains_on_test_gfa():
 
 
 def test_mapper_no_anchors_placeholder():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     mapper = Mapper(index)
     chains = mapper.map_reads([QuerySequence.from_name_and_string("r", "GGGGGGGGGGGGGG")])[0]
@@ -165,7 +165,7 @@ class TestMapqExtension:
         from vgaligner_tpu.io.fastx import QuerySequence
         from vgaligner_tpu.models.mapper import Mapper
 
-        g = graph_from_gfa("/root/reference/test/test.gfa")
+        g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
         index = Index.build(g, 11, 100, 100)
         seq = "".join(g.sequence(h) for h in g.get_path(0).nodes)
         reads = [QuerySequence.from_name_and_string("r0", seq[:40])]
@@ -192,3 +192,36 @@ class TestMapqExtension:
         assert a.mapping_quality == 0.0
         assert b.mapping_quality == 0.0
         assert b.is_secondary and not a.is_secondary
+
+
+def test_gap_cost_poly_matches_f64_table():
+    """The fast mode's poly-rounded integer gap cost equals the exact
+    f64 table's rounded milli-units for EVERY gap the default max_gap
+    admits (verified exhaustively) — so fast-mode scores are exact-mode
+    scores times 1000 except at (unobserved) rounding-boundary gaps."""
+    import jax
+
+    from vgaligner_tpu.ops.chain import gap_cost_scaled_i32
+
+    k = 11
+    table = make_gap_cost_table(k, 1000)
+    want = np.floor(table * 1000.0 + 0.5).astype(np.int64)  # g>=0: half-up
+    g = jnp.asarray(np.arange(0, 1001, dtype=np.int32))
+    with jax.enable_x64(False):
+        got = np.asarray(jax.jit(lambda x: gap_cost_scaled_i32(x, k))(g))
+    np.testing.assert_array_equal(got.astype(np.int64), want)
+
+
+def test_wide_bandwidth_routes_to_scan():
+    """The fast DP takes a band wider than the default 50."""
+    rng = np.random.default_rng(5)
+    B, A, k = 4, 64, 11
+    qb = rng.integers(0, 90, (B, A)).astype(np.int32)
+    tb = rng.integers(0, 20000, (B, A)).astype(np.int64)
+    wide = chain_scores.__wrapped__(
+        jnp.asarray(qb), jnp.asarray(tb), jnp.asarray(tb + k),
+        jnp.asarray(rng.random((B, A)) < 0.85),
+        jnp.asarray(make_gap_cost_table(k, 1000)), seed_length=k,
+        bandwidth=100, precision="fast",
+    )
+    assert wide.f.shape == (B, A)

@@ -7,18 +7,18 @@ import pytest
 
 from vgaligner_tpu.cli import main
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 def test_cli_index_and_map(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     prefix = str(tmp_path / "tg")
-    main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11", "-o", prefix])
+    main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11", "-o", prefix])
     assert os.path.exists(prefix + ".idx.npz")
 
     out = str(tmp_path / "reads")
     main([
-        "map", "-i", prefix, "-f", f"{REFERENCE_TEST_DIR}/single-read-test.fa",
+        "map", "-i", prefix, "-f", f"{DATA_DIR}/single-read-test.fa",
         "-o", out, "-p", "abpoa", "-t", "1",
     ])
     gaf = open(out + "-chains.gaf").read()
@@ -30,12 +30,12 @@ def test_cli_index_and_map(tmp_path, monkeypatch):
 def test_cli_map_also_align(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     prefix = str(tmp_path / "tg")
-    main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11", "-o", prefix])
+    main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11", "-o", prefix])
 
     # a read that follows path x of the graph
     from vgaligner_tpu.graph import graph_from_gfa
 
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     seq = "".join(g.sequence(h) for h in g.get_path(0).nodes)
     reads = tmp_path / "px.fa"
     reads.write_text(f">px\n{seq}\n")
@@ -44,7 +44,7 @@ def test_cli_map_also_align(tmp_path, monkeypatch):
     val = str(tmp_path / "val.txt")
     main([
         "map", "-i", prefix, "-f", str(reads), "-o", out, "-p", "abpoa",
-        "-D", "-G", f"{REFERENCE_TEST_DIR}/test.gfa", "-v", "-P", val, "-t", "1",
+        "-D", "-G", f"{DATA_DIR}/test.gfa", "-v", "-P", val, "-t", "1",
     ])
     chains = open(out + "-chains.gaf").read()
     aligns = open(out + "-alignments.gaf").read()
@@ -61,10 +61,10 @@ def test_cli_map_also_align(tmp_path, monkeypatch):
 def test_cli_missing_graph_for_align(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     prefix = str(tmp_path / "tg")
-    main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11", "-o", prefix])
+    main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11", "-o", prefix])
     with pytest.raises(SystemExit):
         main([
-            "map", "-i", prefix, "-f", f"{REFERENCE_TEST_DIR}/single-read-test.fa",
+            "map", "-i", prefix, "-f", f"{DATA_DIR}/single-read-test.fa",
             "-o", str(tmp_path / "o"), "-p", "abpoa", "-D", "-t", "1",
         ])
 
@@ -75,12 +75,12 @@ def test_cli_gaf_out_path_with_also_align(tmp_path, monkeypatch):
     the alignments write replaced the chains write)."""
     monkeypatch.chdir(tmp_path)
     prefix = str(tmp_path / "tg")
-    main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11", "-o", prefix])
+    main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11", "-o", prefix])
 
     out = str(tmp_path / "final.gaf")
     main([
-        "map", "-i", prefix, "-f", f"{REFERENCE_TEST_DIR}/multiple-read-test.fa",
-        "-o", out, "-p", "abpoa", "-D", "-G", f"{REFERENCE_TEST_DIR}/test.gfa",
+        "map", "-i", prefix, "-f", f"{DATA_DIR}/multiple-read-test.fa",
+        "-o", out, "-p", "abpoa", "-D", "-G", f"{DATA_DIR}/test.gfa",
         "-t", "1",
     ])
     lines = open(out).read().splitlines()
@@ -93,36 +93,33 @@ def test_cli_gaf_out_path_with_also_align(tmp_path, monkeypatch):
     assert not os.path.exists(out + ".progress.json")
 
 
-def test_ensure_usable_backend_cpu_pinned(monkeypatch):
-    """With the environment already pinned to cpu, no probe runs."""
-    import subprocess as sp
+def _cache_dir_in_fresh_process(env):
+    import subprocess
+    import sys
 
-    from vgaligner_tpu.utils import platform as plat
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import vgaligner_tpu, jax; "
+            "print(jax.config.jax_compilation_cache_dir)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return r.stdout.strip(), repo
 
-    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
-    def boom(*a, **k):
-        raise AssertionError("probe must not run when env pins cpu")
-    monkeypatch.setattr(sp, "run", boom)
-    assert plat.ensure_usable_backend() == "cpu"
+
+def test_compile_cache_honours_env_dir(tmp_path):
+    """JAX_COMPILATION_CACHE_DIR is left as the cache, unchanged."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=str(tmp_path / "cc"))
+    got, _repo = _cache_dir_in_fresh_process(env)
+    assert got == str(tmp_path / "cc")
 
 
-def test_ensure_usable_backend_falls_back_on_probe_failure(monkeypatch):
-    """A failing (or hanging) probe pins the process to CPU instead of
-    letting the first in-process device op block the CLI."""
-    import subprocess as sp
-
-    from vgaligner_tpu.utils import platform as plat
-
-    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
-    def timeout_probe(*a, **k):
-        raise sp.TimeoutExpired(cmd=a[0], timeout=k.get("timeout", 0))
-    monkeypatch.setattr(sp, "run", timeout_probe)
-    calls = []
-    import jax
-
-    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
-    assert plat.ensure_usable_backend(probe_timeout_s=0.01) == "cpu"
-    assert ("jax_platforms", "cpu") in calls
+def test_compile_cache_defaults_inside_checkout():
+    """Without the variable the cache is one fixed in-checkout path."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    got, repo = _cache_dir_in_fresh_process(env)
+    assert got == os.path.join(repo, ".jax_cache")
 
 
 def test_cli_write_console(tmp_path, monkeypatch, capsys):
@@ -130,10 +127,10 @@ def test_cli_write_console(tmp_path, monkeypatch, capsys):
     file outputs (map.rs:123-133 console branch)."""
     monkeypatch.chdir(tmp_path)
     prefix = str(tmp_path / "tg")
-    main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11", "-o", prefix])
+    main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11", "-o", prefix])
     out = str(tmp_path / "reads")
     main([
-        "map", "-i", prefix, "-f", f"{REFERENCE_TEST_DIR}/single-read-test.fa",
+        "map", "-i", prefix, "-f", f"{DATA_DIR}/single-read-test.fa",
         "-o", out, "-p", "abpoa", "-t", "1", "-C",
     ])
     printed = capsys.readouterr().out
@@ -150,12 +147,12 @@ def test_cli_precision_flag(tmp_path, monkeypatch):
     MIGRATING.md for the r5 measurement and decision)."""
     monkeypatch.chdir(tmp_path)
     prefix = str(tmp_path / "tg")
-    main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11", "-o", prefix])
+    main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11", "-o", prefix])
     outs = {}
     for mode in ("exact", "fast"):
         out = str(tmp_path / f"reads-{mode}")
         main([
-            "map", "-i", prefix, "-f", f"{REFERENCE_TEST_DIR}/single-read-test.fa",
+            "map", "-i", prefix, "-f", f"{DATA_DIR}/single-read-test.fa",
             "-o", out, "-p", "abpoa", "-t", "1", "--precision", mode,
         ])
         outs[mode] = open(out + "-chains.gaf").read()
@@ -179,12 +176,12 @@ def test_cli_precision_auto_resolution(tmp_path, monkeypatch, caplog):
 
     monkeypatch.chdir(tmp_path)
     prefix = str(tmp_path / "tg")
-    cli.main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11",
+    cli.main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11",
               "-o", prefix])
     with caplog.at_level(logging.INFO, logger="vgaligner"):
         cli.main([
             "map", "-i", prefix,
-            "-f", f"{REFERENCE_TEST_DIR}/single-read-test.fa",
+            "-f", f"{DATA_DIR}/single-read-test.fa",
             "-o", str(tmp_path / "auto"), "-p", "abpoa",
         ])
     assert "precision auto -> exact (backend cpu)" in caplog.text
@@ -193,5 +190,5 @@ def test_cli_precision_auto_resolution(tmp_path, monkeypatch, caplog):
     assert cli._resolve_precision("fast") == "fast"
     import jax
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert cli._resolve_precision("auto") == "fast"

@@ -11,7 +11,7 @@ from vgaligner_tpu.experiments.gafcompare import (
     signed_ids,
 )
 
-DATASETS = "/root/reference/experiments-snakemake"
+from conftest import DATA_DIR
 
 
 def test_signed_ids():
@@ -50,13 +50,17 @@ def test_parse_gaf_first_record_wins(tmp_path):
     assert parse_gaf_paths(str(p)) == {"r1": [1, 2]}
 
 
-@pytest.mark.skipif(not os.path.isdir(DATASETS), reason="datasets missing")
-def test_mini_suite_simple_graph():
+@pytest.mark.parametrize("graph", ["fixture", "synth"])
+def test_mini_suite_simple_graph(graph, tmp_path):
     from vgaligner_tpu.experiments.run_suite import run_dataset
+    from vgaligner_tpu.experiments.synth import synth_graph, write_gfa
 
+    gfa = os.path.join(DATA_DIR, "test.gfa")
+    if graph == "synth":
+        gfa = str(tmp_path / "graph.gfa")
+        write_gfa(synth_graph(seed=5, n_sites=200, backbone_len=2000), gfa)
     r = run_dataset(
-        os.path.join(DATASETS, "1-simple", "graph.gfa"),
-        "1-simple", n_reads=16, read_len=40, k=11, precision="exact",
+        gfa, graph, n_reads=16, read_len=40, k=11, precision="exact",
     )
     assert r.n_reads == 16
     assert r.reads_found == 16

@@ -11,7 +11,7 @@ from vgaligner_tpu.graph import find_forward_sequence, find_graph_seq_length, gr
 from vgaligner_tpu.graph.handlegraph import HashGraph, handle_pack
 from vgaligner_tpu.utils.dna import encode_seq, decode_seq, kmer_code, reverse_complement
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 def test_revcomp():
@@ -61,7 +61,7 @@ def test_simple_path():
 
 
 def test_gfa_parse():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     assert g.n_nodes == 19
     assert g.min_id == 1 and g.max_id == 19
     assert g.sequence(handle_pack(1, False)) == "CAAATAAG"

@@ -14,7 +14,7 @@ from vgaligner_tpu.graph.handlegraph import HashGraph, handle_pack
 from vgaligner_tpu.index import Index, generate_kmers, generate_pos_on_ref
 from vgaligner_tpu.index.kmer_gen import FORWARD, REVERSE
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 def test_kmers_graph_generation(simple_graph):
@@ -140,7 +140,7 @@ def test_serialization_roundtrip(tmp_path, simple_graph):
 
 def test_index_test_gfa():
     """Index over the reference test fixture builds and is self-consistent."""
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     assert index.n_kmers > 0
     # forward-only table consistency
@@ -154,6 +154,14 @@ def test_index_test_gfa():
         if index.find_positions_for_query_kmer(seq[i : i + k]):
             found += 1
     assert found > 0
+
+
+def test_test_gfa_kmer_count_matches_reference():
+    """340 k-mers at k=11 on the reference's test.gfa: the count earlier
+    builds recorded against the reference's own copy of the file, so it
+    pins the rebuilt fixture to it."""
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
+    assert Index.build(g, 11, 100, 100).n_kmers == 340
 
 
 def test_generate_kmers_linearly_matches_dfs_on_single_path():
@@ -194,9 +202,9 @@ def test_path_guided_fallback_on_dfs_cap():
     from vgaligner_tpu.graph import graph_from_gfa
     from vgaligner_tpu.index.build import Index
 
-    from conftest import REFERENCE_TEST_DIR
+    from conftest import DATA_DIR
 
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     full = Index.build(g, 11, 100, 100)
 
     for no_native in ("", "1"):

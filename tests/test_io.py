@@ -7,18 +7,18 @@ from vgaligner_tpu.io.fastx import QuerySequence, read_seqs_from_file
 from vgaligner_tpu.io.gaf import GAFAlignment
 from vgaligner_tpu.models.mapper import Chain
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 def test_read_fasta_single_read():
-    seqs = read_seqs_from_file(f"{REFERENCE_TEST_DIR}/single-read-test.fa")
+    seqs = read_seqs_from_file(f"{DATA_DIR}/single-read-test.fa")
     assert len(seqs) == 1
     assert seqs[0].name == "seq0"
     assert seqs[0].seq == "AAAAACGTTAAATTTGGCATCGTAGCAAAAA"
 
 
 def test_read_fasta_headers():
-    seqs = read_seqs_from_file(f"{REFERENCE_TEST_DIR}/multiple-read-test.fa")
+    seqs = read_seqs_from_file(f"{DATA_DIR}/multiple-read-test.fa")
     assert len(seqs) == 2
     assert seqs[0].name == "seq0"
     assert seqs[1].name == "seq1"
@@ -26,7 +26,7 @@ def test_read_fasta_headers():
 
 
 def test_read_fastq():
-    seqs = read_seqs_from_file(f"{REFERENCE_TEST_DIR}/test.fq")
+    seqs = read_seqs_from_file(f"{DATA_DIR}/test.fq")
     assert len(seqs) == 1
     assert seqs[0].name.startswith("ERR059938.60")
 

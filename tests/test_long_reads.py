@@ -1,32 +1,23 @@
 """Long reads (>127 bp) through the full map + --also-align pipeline.
 
 The reference maps reads of any length (abPOA's banded DP keeps long
-base-level alignments tractable, align.rs:190-202).  Every r3 benchmark
-exercised <=127 bp reads (W = one 128-lane tile); these tests drive
-1,000 bp reads end to end on the DRB1-3123 HLA-zoo graph: mapping
-(windows ~990 k-mers/read), chaining, corridor extraction, and the
-global POA at W = 1024 (8 lane tiles), checking the device-path result
-against the host oracle and the read's source window.
+base-level alignments tractable, align.rs:190-202).  These tests drive
+1,000 bp reads end to end on the seeded DRB1-3123-shaped graph
+(experiments/synth.py): mapping (~990 k-mers/read), chaining, corridor
+extraction, and the global POA at W = 1024, checking the device-path
+result against the host oracle and the read's source window.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-DRB1 = "/root/reference/experiments-snakemake/2-DRB1-3123/graph.gfa"
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(DRB1), reason="HLA-zoo graphs unavailable"
-)
-
 
 @pytest.fixture(scope="module")
 def drb1_index():
-    from vgaligner_tpu.graph import graph_from_gfa
+    from vgaligner_tpu.experiments.synth import synth_graph, to_hash_graph
     from vgaligner_tpu.index import Index
 
-    g = graph_from_gfa(DRB1)
+    g = to_hash_graph(synth_graph(seed=1))
     return g, Index.build(g, 11, 100, 100)
 
 
@@ -120,37 +111,23 @@ def test_long_read_device_path_matches_host_oracle(drb1_index):
     assert aln_dev.to_string() == aln_host.to_string()
 
 
-def test_longread_corridor_chunks_all_ride_pallas(drb1_index):
-    """r5 criterion: zero XLA-scan fallbacks on the 1 kb workload.
-    Every chunk the long-read DRB1 align pipeline prepares must plan a
-    Pallas ring (R > 0) — the V>=4096 far-fan-out chunks via the
-    escalated pin budget (PIN_K < K <= PIN_K_MAX), which rescued ~490
-    ms of XLA scan per drain (NOTES.md)."""
-    import numpy as np
-
+def test_longread_chunks_fit_the_gpu_kernel(drb1_index):
+    """Every chunk the 1 kb align pipeline prepares has a shape the GPU
+    POA kernel takes (ops/poa_cuda.block_geometry): W = L+1 a multiple
+    of 32 within the block's column budget, fan-in within its slots."""
     from vgaligner_tpu.io.fastx import QuerySequence
     from vgaligner_tpu.models.mapper import Mapper
     from vgaligner_tpu.models.poa_aligner import PoaAligner, PoaEngine
     from vgaligner_tpu.ops import poa_device as PD
+    from vgaligner_tpu.ops.poa_cuda import block_geometry
 
     graph, index = drb1_index
-    rng = np.random.default_rng(79)
-    path_seqs = []
-    for pid in graph.paths_iter():
-        path_seqs.append(
-            "".join(graph.sequence(h) for h in graph.get_path(pid).nodes)
-        )
-    reads = []
-    for _ in range(64):
-        sseq = path_seqs[int(rng.integers(len(path_seqs)))]
-        start = int(rng.integers(0, max(len(sseq) - 1000, 1)))
-        reads.append(sseq[start : start + 1000])
     queries = [
-        QuerySequence.from_name_and_string(f"l{i}", r)
-        for i, r in enumerate(reads)
+        QuerySequence.from_name_and_string(f"l{i}", s)
+        for i, (s, _start) in enumerate(_path_reads(graph, 16, 1000, seed=79))
     ]
-    mapper = Mapper(index, chain_min_n_anchors=3, precision="fast")
-    chains = mapper.map_reads(queries)
+    chains = Mapper(index, chain_min_n_anchors=3, precision="fast").map_reads(
+        queries)
     aligner = PoaAligner(index, PoaEngine.ABPOA)
 
     captured = []
@@ -167,11 +144,9 @@ def test_longread_corridor_chunks_all_ride_pallas(drb1_index):
         PD.kernel_launch_wires = orig
 
     assert captured
-    escalated = 0
     for _wire, version, dims, _rest in captured:
         assert version == "v4"
-        assert dims[6] > 0, f"XLA fallback planned: dims={dims}"
-        if dims[7] > PD.PIN_K:
-            escalated += 1
-    # the far-fan-out big-V chunks must be present and pin-escalated
-    assert escalated >= 1, [d for _w, _v, d, _r in captured]
+        b_pad, V, P, l_pad = dims[:4]
+        threads, cols = block_geometry(l_pad + 1)
+        assert threads * cols == l_pad + 1 and 1 <= P <= PD.P_MAX
+    assert max(d[3] for _w, _v, d, _r in captured) + 1 == 1024

@@ -17,16 +17,16 @@ from vgaligner_tpu.io.fastx import read_seqs_from_file
 from vgaligner_tpu.io.gaf import write_gaf_to_file
 from vgaligner_tpu.models.mapper import Mapper
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
 
 def _map_fixture(reads_file, **kwargs):
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     mapper = Mapper(index, bandwidth=50, max_gap=1000, **kwargs)
-    queries = read_seqs_from_file(f"{REFERENCE_TEST_DIR}/{reads_file}")
+    queries = read_seqs_from_file(f"{DATA_DIR}/{reads_file}")
     chains = mapper.map_reads(queries)
     return mapper.chains_to_gaf(chains), chains
 
@@ -70,7 +70,7 @@ def test_map_multiple_reads_golden():
 
 
 def _map_path_window_fixture():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     mapper = Mapper(index, bandwidth=50, max_gap=1000, chain_min_n_anchors=2)
     queries = read_seqs_from_file(os.path.join(GOLDEN_DIR, "path-window-reads.fa"))
@@ -133,7 +133,7 @@ def test_poa_full_reads_recover_gfa_paths():
 def test_map_query_is_graph_path():
     """A read that IS a path of the graph must produce a non-placeholder
     chain covering (nearly) the whole read."""
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     mapper = Mapper(index, chain_min_n_anchors=3)
     path_x = g.get_path(0)
@@ -152,7 +152,7 @@ def test_long_reads_over_8kb():
     unbounded (the old packed transfer capped reads at 8 kb)."""
     from vgaligner_tpu.io.fastx import QuerySequence
 
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     # synthesize a long read by tiling the linearization's first path-run
     base = index.seq_fwd[:40]
@@ -232,7 +232,7 @@ def test_packed_channel_int32_path_matches_uint16():
     from vgaligner_tpu.ops.chain import make_gap_cost_table
     from vgaligner_tpu.ops.encode import encode_reads_host
 
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     path_x = g.get_path(0)
     seq = "".join(g.sequence(h) for h in path_x.nodes)
@@ -267,7 +267,7 @@ def test_dense_lut_matches_searchsorted(monkeypatch):
 
     from vgaligner_tpu.io.fastx import QuerySequence
 
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     seq = "".join(g.sequence(h) for h in g.get_path(0).nodes)
     queries = [
@@ -306,7 +306,7 @@ def test_map_wire_dispatch_matches_unpacked():
 
     if not wire_bitcast_supported():
         pytest.skip("wire bitcast unsupported on this backend; fallback path covers it")
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     mapper = Mapper(index, chain_min_n_anchors=2)
     seq = "".join(g.sequence(h) for h in g.get_path(0).nodes)
@@ -346,7 +346,7 @@ def test_fused_bucket_ladder_matches_unfused(monkeypatch):
     from vgaligner_tpu.models import mapper as mapper_mod
     from vgaligner_tpu.models.mapper import Mapper
 
-    graph = graph_from_gfa("/root/reference/test/test.gfa")
+    graph = graph_from_gfa(os.path.join(DATA_DIR, "test.gfa"))
     index = Index.build(graph, 11, 100, 100)
     rng = np.random.default_rng(17)
     fwd = index.seq_fwd

@@ -12,12 +12,12 @@ from vgaligner_tpu.io.fastx import QuerySequence
 from vgaligner_tpu.models.mapper import Mapper
 from vgaligner_tpu.parallel.mesh import make_mesh
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 @pytest.fixture(scope="module")
 def index():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     return Index.build(g, 11, 100, 100)
 
 
@@ -26,7 +26,7 @@ def test_mesh_has_8_devices():
 
 
 def test_sharded_mapping_matches_single_device(index):
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     reads = []
     # 13 reads (not a multiple of 8 -> exercises batch padding)
     for i in range(13):
@@ -48,12 +48,11 @@ def test_offset_sharded_index_matches_replicated():
     """shard_index=True (position table offset-sharded over the mesh,
     gathered back with one psum per batch — parallel/mesh.py
     place_index + Mapper._device_map_sharded) must produce chains
-    bit-identical to the replicated-index mesh path on the DRB1-scale
-    workload shapes."""
-    gfa = "/root/reference/experiments-snakemake/2-DRB1-3123/graph.gfa"
-    if not os.path.exists(gfa):
-        gfa = f"{REFERENCE_TEST_DIR}/test.gfa"
-    g = graph_from_gfa(gfa)
+    bit-identical to the replicated-index mesh path on a seeded
+    bubble graph."""
+    from vgaligner_tpu.experiments.synth import synth_graph, to_hash_graph
+
+    g = to_hash_graph(synth_graph(seed=3, n_sites=300, backbone_len=3000))
     idx = Index.build(g, 11, 100, 100)
     rng = np.random.default_rng(5)
     reads = []
@@ -184,7 +183,7 @@ def test_two_process_four_device_mapping_equivalence(tmp_path):
     from vgaligner_tpu.parallel import make_mesh
 
     assert len(jax.devices()) == 8
-    g = graph_from_gfa("/root/reference/test/test.gfa")
+    g = graph_from_gfa(os.path.join(DATA_DIR, "test.gfa"))
     index = Index.build(g, 11, 100, 100)
     queries = read_seqs_from_file(
         os.path.join(os.path.dirname(__file__), "golden",

@@ -28,7 +28,7 @@ from vgaligner_tpu.ops.poa import (
     gap_cost,
 )
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 DIAMOND_NODES = ["A", "CT", "GA", "GCA"]
 DIAMOND_EDGES = [(0, 1), (0, 2), (1, 3), (2, 3)]
@@ -108,7 +108,7 @@ def _chain_for(index, mapper, seq, name="r"):
 
 @pytest.fixture(scope="module")
 def tindex():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     return g, Index.build(g, 11, 100, 100)
 
 

@@ -1,9 +1,8 @@
 """Independent cross-validation of the POA scoring engine.
 
-VERDICT r2 "Missing #3": every device/Pallas/native POA path is tested
-against `ops/poa.py`, written by the same author to the same
-assumptions — a systematic misreading of abPOA's semantics would pass
-every test.  This file is the antidote: a **textbook implementation of
+Every device/native POA path is tested against `ops/poa.py`, written
+by the same author to the same assumptions — a systematic misreading
+of abPOA's semantics would pass every test.  This file is the antidote: a **textbook implementation of
 partial-order alignment with two-piece (convex) affine gaps, written
 directly from the published recurrences** — Lee, Grasso & Sharlow 2002
 (POA: the DP runs over DAG vertices in topological order, predecessors

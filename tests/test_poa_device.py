@@ -461,9 +461,8 @@ def test_wire4_kernel_matches_packed_with_escaped_deltas():
     dnib = nibble_fold(df)
     exc_pd16, ok = exception_pred_deltas(exc_idx, exc_pred, B, V, P)
     assert ok
-    exc_pin = np.full(len(exc_idx), 255, np.uint8)
     wire = pack_chunk_wire4(
-        vnib, dnib, nv, nibble_fold(q), nq, exc_idx, exc_pd16, exc_pin
+        vnib, dnib, nv, nibble_fold(q), nq, exc_idx, exc_pd16
     )
     got = poa_global_kernel_wire4(
         jnp.asarray(wire), B, V, P, L, len(exc_idx), t_pad
@@ -517,7 +516,7 @@ def test_exception_pred_delta_overflow_falls_back_to_wire3(monkeypatch):
 
 def test_single_trip_fetch_overflow_refetch(monkeypatch):
     """kernel_finish_all fetches tapes sliced to a static guess in ONE
-    round trip; a traceback longer than the guess (deletion-heavy global
+    transfer; a traceback longer than the guess (deletion-heavy global
     path) must transparently refetch and still decode correctly.  A
     200-base linear graph vs a 24-base query forces ~180 deletions; with
     slack pushed negative the guess floors at 64 columns < tlen."""

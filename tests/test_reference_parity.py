@@ -26,7 +26,7 @@ from vgaligner_tpu.io.gaf import GAFAlignment
 from vgaligner_tpu.models.host_pipeline import NEG, HAnchor, score_anchor
 from vgaligner_tpu.models.mapper import Chain, anchors_for_query_host
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +255,7 @@ def _chain_anchors_oriented(anchors, seed_length, bandwidth, max_gap, min_anchor
 
 
 def test_chains_whole_graph():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     query = QuerySequence.from_string(index.seq_fwd)
     anchors = anchors_for_query_host(index, query, only_forward=False)
@@ -303,7 +303,7 @@ def test_get_subgraph_paths():
         get_subgraph_paths,
     )
 
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     rng = OrientedGraphRange(
         orient=RangeOrient.FORWARD,
         handles=[handle_pack(i, False) for i in range(g.min_id, g.max_id + 1)],

@@ -9,7 +9,7 @@ import pytest
 from vgaligner_tpu.cli import main
 from vgaligner_tpu.io.resume import ResumableGafWriter
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 class _Rec:
@@ -50,12 +50,12 @@ def test_cli_resume_after_interrupt(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(stream_mod, "DEFAULT_BATCH", 2)
     prefix = str(tmp_path / "tg")
-    main(["index", "-i", f"{REFERENCE_TEST_DIR}/test.gfa", "-k", "11", "-o", prefix])
+    main(["index", "-i", f"{DATA_DIR}/test.gfa", "-k", "11", "-o", prefix])
 
     # 5 reads: windows of path x's sequence
     from vgaligner_tpu.graph import graph_from_gfa
 
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     seq = "".join(g.sequence(h) for h in g.get_path(0).nodes)
     reads = str(tmp_path / "reads.fa")
     with open(reads, "w") as fh:
@@ -64,7 +64,7 @@ def test_cli_resume_after_interrupt(tmp_path, monkeypatch):
 
     clean = str(tmp_path / "clean")
     args = ["map", "-i", prefix, "-f", reads, "-p", "abpoa", "-D",
-            "-G", f"{REFERENCE_TEST_DIR}/test.gfa", "-t", "1"]
+            "-G", f"{DATA_DIR}/test.gfa", "-t", "1"]
     main(args + ["-o", clean])
 
     # interrupted run: the POA drain dies on its second batch

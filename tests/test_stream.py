@@ -11,7 +11,7 @@ from vgaligner_tpu.models.mapper import Mapper
 from vgaligner_tpu.models.poa_aligner import PoaAligner, PoaEngine
 from vgaligner_tpu.models.stream import stream_map_align
 
-from conftest import REFERENCE_TEST_DIR
+from conftest import DATA_DIR
 
 
 def _reads(graph, n=17, read_len=24, seed=3):
@@ -31,7 +31,7 @@ def _reads(graph, n=17, read_len=24, seed=3):
 
 @pytest.mark.parametrize("engine", [PoaEngine.ABPOA, PoaEngine.RSPOA])
 def test_stream_matches_unbatched(engine):
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     queries = _reads(g)
     mapper = Mapper(index, chain_min_n_anchors=2)
@@ -56,7 +56,7 @@ def test_stream_matches_unbatched(engine):
 
 
 def test_stream_chains_only():
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     queries = _reads(g, n=7)
     mapper = Mapper(index, chain_min_n_anchors=2)
@@ -73,7 +73,7 @@ def test_begin_finish_map_split_matches_map_reads():
     """map_reads(q) == finish_map(begin_map(q)) under the flag
     combinations the split must preserve (the pipelined map-only
     stream rides these halves)."""
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     queries = _reads(g, n=9)
     for kw in ({}, {"both_strands": True}, {"mapq": True},
@@ -89,7 +89,7 @@ def test_begin_finish_map_split_matches_map_reads():
 
 def test_stream_chains_only_sync_mode(monkeypatch):
     monkeypatch.setenv("VGALIGNER_STREAM_ASYNC", "0")
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     queries = _reads(g, n=8)
     mapper = Mapper(index, chain_min_n_anchors=2)
@@ -105,7 +105,7 @@ def test_stream_chains_only_sync_mode(monkeypatch):
 def test_stream_chains_only_short_and_empty_batches():
     """Placeholder-only batches (reads shorter than k) flow through the
     pipelined map stream without stalling emission order."""
-    g = graph_from_gfa(f"{REFERENCE_TEST_DIR}/test.gfa")
+    g = graph_from_gfa(f"{DATA_DIR}/test.gfa")
     index = Index.build(g, 11, 100, 100)
     queries = _reads(g, n=4)
     # a batch of all-placeholder reads in the middle

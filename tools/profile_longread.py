@@ -1,6 +1,7 @@
 """Decompose the longread_1kb bench: where do the milliseconds go?
 
-Runs bench.py's exact long-read protocol (256 x 1 kb DRB1 reads, map +
+Runs bench.py's long-read protocol (256 x 1 kb reads on the seeded
+DRB1-3123-shaped graph, map +
 --also-align) and prints the phase timers of the mapper, the POA device
 drain, and the aligner, separated for the map and align stages.
 
@@ -13,7 +14,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from vgaligner_tpu.graph import graph_from_gfa
+from vgaligner_tpu.experiments.synth import (
+    sample_reads, synth_graph, to_hash_graph,
+)
 from vgaligner_tpu.index import Index
 from vgaligner_tpu.io.fastx import QuerySequence
 from vgaligner_tpu.models.mapper import Mapper
@@ -21,31 +24,10 @@ from vgaligner_tpu.models.poa_aligner import PoaAligner, PoaEngine
 from vgaligner_tpu.ops import poa_device
 from vgaligner_tpu.utils.timing import PhaseTimer
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-GRAPH = "/root/reference/experiments-snakemake/2-DRB1-3123/graph.gfa"
-
-
-def sample_reads(graph, n, length, seed):
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    path_seqs = []
-    for pid in graph.paths_iter():
-        path_seqs.append(
-            "".join(graph.sequence(h) for h in graph.get_path(pid).nodes)
-        )
-    reads = []
-    for _ in range(n):
-        s = path_seqs[int(rng.integers(len(path_seqs)))]
-        start = int(rng.integers(0, max(len(s) - length, 1)))
-        reads.append(s[start : start + length])
-    return reads
-
-
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     rl = int(sys.argv[2]) if len(sys.argv) > 2 else 1000
-    graph = graph_from_gfa(GRAPH)
+    graph = to_hash_graph(synth_graph(seed=1))
     index = Index.build(graph, 11, 100, 100)
     reads = sample_reads(graph, n, rl, seed=79)
     qs = [QuerySequence.from_name_and_string(f"l{i}", s)

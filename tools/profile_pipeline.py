@@ -12,18 +12,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-from bench import GRAPH, FALLBACK_GRAPH, K, N_READS, READ_LEN, sample_reads  # noqa: E402
+from bench import K, N_READS, READ_LEN  # noqa: E402
 
 
 def main():
-    from vgaligner_tpu.graph import graph_from_gfa
+    from vgaligner_tpu.experiments.synth import (
+        sample_reads, synth_graph, to_hash_graph,
+    )
     from vgaligner_tpu.index import Index
     from vgaligner_tpu.io.fastx import QuerySequence
     from vgaligner_tpu.models.mapper import Mapper
     from vgaligner_tpu.models.poa_aligner import PoaAligner, PoaEngine
 
-    graph_path = GRAPH if os.path.exists(GRAPH) else FALLBACK_GRAPH
-    graph = graph_from_gfa(graph_path)
+    graph = to_hash_graph(synth_graph(seed=1))
     index = Index.build(graph, K, 100, 100)
     reads = sample_reads(graph, N_READS, READ_LEN)
     queries = [QuerySequence.from_name_and_string(f"r{i}", s) for i, s in enumerate(reads)]

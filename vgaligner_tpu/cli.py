@@ -1,6 +1,6 @@
 """Command-line interface: `vgaligner index` / `vgaligner map`.
 
-Behavioral reference: /root/reference/src/main.rs:30-39 +
+Behavioral reference: rs-vgaligner src/main.rs:30-39 +
 subcommands/cli.yml (flag surface) + subcommands/index_main.rs /
 map_main.rs (defaults and dispatch).  Flag names, shorthands and
 defaults mirror cli.yml:5-175; reference quirks preserved:
@@ -34,7 +34,7 @@ log = logging.getLogger("vgaligner")
 
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="vgaligner", description="Aligns reads to a Variation Graph (TPU-native)"
+        prog="vgaligner", description="Aligns reads to a Variation Graph"
     )
     sub = p.add_subparsers(dest="command")
 
@@ -128,22 +128,20 @@ def _build_parser() -> argparse.ArgumentParser:
                     default="auto",
                     help="chaining DP arithmetic (framework knob; the "
                          "reference has no analog): 'exact' reproduces the "
-                         "reference's f64 scores bit-for-bit (emulated f64 "
-                         "on TPU — measured 2.4x slower on the DRB1 map "
-                         "batch); 'fast' is the scaled-int32 DP — identical "
-                         "chains except for ties within 1e-3 of each other "
-                         "(see ARCHITECTURE.md).  'auto' (default) picks "
-                         "exact on CPU (native f64, parity is free) and "
-                         "fast on accelerators (MIGRATING.md records the "
-                         "measurement + decision)")
+                         "reference's f64 scores bit-for-bit; 'fast' is the "
+                         "scaled-int32 DP — identical chains except for "
+                         "ties within 1e-3 of each other (see "
+                         "ARCHITECTURE.md).  'auto' (default) picks exact "
+                         "on CPU and fast on accelerators")
     return p
 
 
 def _resolve_precision(precision: str) -> str:
     """'auto' -> exact on CPU (native IEEE f64 — reference bit-parity
-    is free), fast on accelerators (emulated-f64 exact measured 2.36x
-    slower on the DRB1 map batch, r5 — MIGRATING.md records the
-    decision)."""
+    is free), fast on accelerators — a default carried from an
+    accelerator that emulated f64; on the H100 the two map at similar
+    rates (CHANGES.md), so the default is open (ROADMAP Queue 1
+    item 7)."""
     if precision != "auto":
         return precision
     import jax
@@ -187,11 +185,6 @@ def map_main(args) -> None:
     from .io.fastx import read_seqs_from_file
     from .models.mapper import Mapper
     from .models.poa_aligner import PoaAligner, PoaEngine
-    from .utils.platform import ensure_usable_backend
-
-    # Mapping is device work; if the device transport is down or hung,
-    # degrade to CPU instead of blocking the CLI (bounded probe).
-    ensure_usable_backend()
 
     idx_path = args.index
     if idx_path.endswith(".idx.npz"):
@@ -303,19 +296,15 @@ def map_main(args) -> None:
 
     # opt-in device tracing (the SURVEY §5 analog of the reference's
     # RUST_LOG phase logging): VGALIGNER_TRACE=<dir> wraps the run in a
-    # jax profiler trace for xprof/tensorboard; best-effort, some
-    # transports do not support profiling
+    # jax profiler trace for xprof/tensorboard
     import contextlib
 
     trace_dir = os.environ.get("VGALIGNER_TRACE")
     trace_cm = contextlib.nullcontext()
     if trace_dir:
-        try:
-            import jax
+        import jax
 
-            trace_cm = jax.profiler.trace(trace_dir)
-        except Exception as exc:  # pragma: no cover - backend-dependent
-            log.warning("jax profiler trace unavailable: %s", exc)
+        trace_cm = jax.profiler.trace(trace_dir)
     with trace_cm:
         stream_map_align(
             mapper, pending_queries, aligner,

@@ -9,7 +9,7 @@ timings and reads/s — the acceptance + benchmark harness in one.
 
 Usage:
     python -m vgaligner_tpu.experiments.run_suite \
-        [--datasets DIR] [--graphs 1-simple,2-DRB1-3123] [--n-reads N]
+        --datasets DIR [--graphs 1-simple,2-DRB1-3123] [--n-reads N]
         [--read-len L] [-k K] [--precision fast|exact] [--out report.json]
 """
 
@@ -27,9 +27,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 log = logging.getLogger(__name__)
-
-DEFAULT_DATASETS = "/root/reference/experiments-snakemake"
-
 
 @dataclass
 class DatasetReport:
@@ -181,7 +178,8 @@ def discover_datasets(datasets_dir: str) -> List[Tuple[str, str]]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description="HLA-zoo validation suite")
-    ap.add_argument("--datasets", default=DEFAULT_DATASETS)
+    ap.add_argument("--datasets", required=True,
+                    help="directory of <name>/graph.gfa dataset dirs")
     ap.add_argument("--graphs", default=None,
                     help="comma-separated dataset names (default: all)")
     ap.add_argument("--n-reads", type=int, default=512)

@@ -1,7 +1,7 @@
 """GFA1 parsing into the host graph model.
 
 Behavioral reference: the `gfa` 0.8 crate + HashGraph::from_gfa as used by
-/root/reference/src/subcommands/index_main.rs:72-74. We parse S (segments),
+rs-vgaligner src/subcommands/index_main.rs:72-74. We parse S (segments),
 L (links) and P (paths) lines; segments become nodes, links become oriented
 edges in file order (edge-list order matters for parity, see
 handlegraph.py), paths keep their oriented step lists.
@@ -61,9 +61,8 @@ def parse_gfa(path: str) -> Tuple[
     return segments, links, paths
 
 
-def graph_from_gfa(path: str) -> HashGraph:
-    """Build a HashGraph from a GFA1 file (S, L, P lines; file order)."""
-    segments, links, paths = parse_gfa(path)
+def graph_from_records(segments, links, paths) -> HashGraph:
+    """Build a HashGraph from parse_gfa-shaped records (file order)."""
     graph = HashGraph()
     for node_id, seq in segments:
         graph.create_handle(seq, node_id)
@@ -74,3 +73,8 @@ def graph_from_gfa(path: str) -> HashGraph:
         for node_id, rev in steps:
             graph.append_step(pid, handle_pack(node_id, rev))
     return graph
+
+
+def graph_from_gfa(path: str) -> HashGraph:
+    """Build a HashGraph from a GFA1 file (S, L, P lines; file order)."""
+    return graph_from_records(*parse_gfa(path))

@@ -7,7 +7,7 @@ string, marking node starts in a bitvector, and recording per node a
 NodeRef {seq_idx, edge_idx, edges_to_node} plus a flat edge vector
 (left edges then right edges per node).
 
-TPU-native re-design: the node-start bitvector becomes `node_starts`, a
+Device re-design: the node-start bitvector becomes `node_starts`, a
 sorted int64 prefix array with the end marker appended — rank is a
 searchsorted and select is a direct lookup, replacing the O(seq_len)
 loops at index.rs:427-480. The edge vector stores packed handles as

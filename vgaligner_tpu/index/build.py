@@ -4,7 +4,7 @@ Behavioral reference: /root/reference/src/index.rs (struct Index,
 Index::build, query and graph-accessor methods) and
 src/serialization.rs.
 
-TPU-native re-design decisions:
+Device re-design decisions:
 
 * {ahash + boomphf MPHF + `kmer_pos_ref` membership scan}
   (index.rs:229-236, 319) → one sorted array of 2-bit-packed k-mer codes

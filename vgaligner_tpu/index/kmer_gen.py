@@ -16,7 +16,7 @@ Behavioral reference: /root/reference/src/kmer.rs.
   graph positions → positions on the fwd/rev linearization
   (get_seq_pos, kmer.rs:752-770), grouped per unique k-mer sequence with
   per-group sorted positions.  Instead of the u64::MAX delimiter rows we
-  store explicit (offset, count) pairs — the TPU-friendly layout.
+  store explicit (offset, count) pairs — the device-friendly layout.
 
 The modimizer (`hash % sampling_rate == 0`, kmer.rs:409,464-466)
 defaults to a bit-exact reconstruction of ahash 0.7.6's zero-seed

@@ -1,9 +1,9 @@
 """The mapping pipeline: reads -> anchors -> chains -> GAF.
 
-Behavioral reference: map_reads (/root/reference/src/map.rs:27-216) and
+Behavioral reference: map_reads (rs-vgaligner src/map.rs:27-216) and
 the chain backtracking of chain_anchors (chain.rs:452-655).
 
-Device/host split (TPU-first):
+Device/host split:
   * encode + lookup + anchor materialization + chaining DP run jitted on
     device, batched over reads (ops/encode.py, ops/lookup.py,
     ops/chain.py); batches are bucketed by padded read length and anchor
@@ -292,7 +292,7 @@ def _anchor_coords_host(seqs, index, a_max: np.ndarray, mem_off: np.ndarray,
 
 def _fetch_bucket_outputs(outs):
     """Drain [(a_max, packed, counts), ...] bucket outputs to host numpy
-    with a minimal number of link transfers (ops.poa_device.
+    with a minimal number of device-to-host transfers (ops.poa_device.
     fetch_grouped groups by dtype).  The wire path fuses each bucket's
     u8 plane and its counts into ONE device buffer (counts is None
     here) — split back after the fetch; legacy two-output buckets pass
@@ -337,12 +337,11 @@ def _fused_map_fn(layout, k, bandwidth, precision):
     mapping batch: per bucket, slice its (codes, lens) wire segment
     from the mega buffer at static offsets, run the fused map core, and
     concatenate every bucket's u8 delta plane + bitcast counts into ONE
-    output buffer.  On a link that charges a round trip per uploaded
-    AND per fetched buffer, this holds the whole map step at one
-    device_put + one device_get regardless of how many buckets the
-    anchor-capacity ladder splits the batch into — which is what makes
-    the {64,128,256} ladder free (smaller a_max = ~linearly less chain
-    DP and lookup work for the ~60%% of reads with few anchors).
+    output buffer.  This holds the whole map step at one device_put +
+    one device_get regardless of how many buckets the anchor-capacity
+    ladder splits the batch into, so the {64,128,256} ladder costs no
+    extra transfers (smaller a_max = ~linearly less chain DP and lookup
+    work for the ~60%% of reads with few anchors).
 
     layout: tuple of (B, L, a_max, wsize) per bucket, ladder-quantized
     upstream so executables repeat across batches."""
@@ -416,9 +415,7 @@ class Mapper:
                 mesh, self.dindex, shard_positions=self.shard_index
             )
         self._gap_table = make_gap_cost_table(index.kmer_length, max_gap)
-        # one upload, reused by every bucket launch (the host link charges
-        # per-buffer latency, so re-running jnp.asarray per batch would pay
-        # a round trip for an array that never changes)
+        # one upload, reused by every bucket launch
         if mesh is not None:
             from ..parallel.mesh import replicate
 
@@ -435,8 +432,7 @@ class Mapper:
     def _map_core(codes, lens, dindex, gap_table, k, a_max, bandwidth,
                   precision="exact", position_gather=None):
         """One fused mapping step (trace-level body shared by the
-        replicated and offset-sharded index paths).  The host link has
-        high per-transfer latency and low bandwidth, so the host-bound
+        replicated and offset-sharded index paths).  The host-bound
         payload is a single integer channel per anchor plus per-read
         counts:
 
@@ -451,7 +447,7 @@ class Mapper:
         device.  Anchor coordinates for the few anchors that end up in
         chains are re-derived host-side from the index arrays
         (native anchor_coords / _anchor_coords_host), so nothing else
-        crosses the link (pred is capped at 2^17 = max_anchors_cap).
+        leaves the device (pred is capped at 2^17 = max_anchors_cap).
         """
         import jax.numpy as jnp
 
@@ -472,8 +468,8 @@ class Mapper:
             # predecessors live within the DP's `bandwidth`-slot window
             # (chain.rs:403-417), so the pointer fits 7 bits as a slot
             # DELTA — one uint8 per anchor halves the dominant
-            # device->host payload of the map stage (bandwidth-bound
-            # link).  0 = no predecessor; bit 7 = is_start.
+            # device->host payload of the map stage.  0 = no
+            # predecessor; bit 7 = is_start.
             slot = jnp.arange(a_max, dtype=jnp.int32)[None, :]
             delta = jnp.where(scores.pred >= 0, slot - scores.pred, 0)
             packed = (delta | (is_start.astype(jnp.int32) << 7)).astype(
@@ -590,7 +586,7 @@ class Mapper:
                          precision="exact"):
         """Single-buffer variant of _device_map: codes[B,L] int8 and
         lens[B] int32 arrive as ONE uint8 buffer (device_put pays
-        per-buffer latency on the host link), unpacked by static slicing
+        per-buffer cost), unpacked by static slicing
         + bitcast.  Layout must match the packer in _dispatch_bucket."""
         codes = jax.lax.bitcast_convert_type(
             wire[: B * L], jnp.int8
@@ -601,8 +597,8 @@ class Mapper:
         packed, counts = Mapper._map_core(
             codes, lens, dindex, gap_table, k, a_max, bandwidth, precision
         )
-        # outputs ride back as ONE buffer too (each fetched buffer pays
-        # a link round trip): u8 plane rows + bitcast counts tail.
+        # outputs ride back as ONE buffer too: u8 plane rows + bitcast
+        # counts tail.
         # Only the u8 (delta) plane qualifies — u16/i32 planes keep the
         # two-output layout (bitcasting them to u8 is fine, but they
         # only occur for bandwidth >= 127, off the production path).
@@ -669,10 +665,10 @@ class Mapper:
         map_reads(q) == finish_map(begin_map(q)).
 
         The split exists for the software-pipelined map stream
-        (models/stream.py): the transport executes lazily, so batch N's
-        device program runs while finish_map(N) blocks in device_get
-        on a worker thread — overlapping it with begin_map(N+1)'s
-        host encode on the main thread."""
+        (models/stream.py): batch N's device program runs while
+        finish_map(N) blocks in device_get on a worker thread —
+        overlapping it with begin_map(N+1)'s host encode on the main
+        thread."""
         if not self.both_strands:
             return (queries, None, self._begin_oriented(queries))
         from ..utils.dna import reverse_complement
@@ -776,14 +772,14 @@ class Mapper:
             t = int(totals[local])
             if use_fused:
                 # {64,128,256,big} ladder: with the fused single-launch
-                # drain below, extra buckets cost no round trips, and a
+                # drain below, extra buckets cost no transfers, and a
                 # smaller a_max means ~linearly less DP/lookup/transfer
                 # for the majority of reads
                 a_max = 64 if t <= 64 else (128 if t <= 128 else (
                     256 if t <= 256 else big_a_max))
             else:
-                # two buckets: every extra bucket costs host-link round
-                # trips on the unfused paths (mesh, no-bitcast)
+                # two buckets: every extra bucket costs its own transfers
+                # on the unfused paths (mesh, no-bitcast)
                 a_max = 256 if t <= 256 else big_a_max
             buckets.setdefault(a_max, []).append(qi)
 
@@ -793,10 +789,9 @@ class Mapper:
                 self._map_buckets_fused_begin(queries, buckets),
             )
         # dispatch every bucket's device program; _finish_oriented
-        # drains all results in ONE device_get (the host link charges
-        # ~27ms+ per round trip, per BUFFER — bucket outputs are first
-        # concatenated on device into one flat buffer per dtype,
-        # see _fetch_bucket_outputs)
+        # drains all results in ONE device_get (bucket outputs are first
+        # concatenated on device into one flat buffer per dtype, see
+        # _fetch_bucket_outputs)
         dispatched = []
         for a_max, qidx in sorted(buckets.items()):
             dispatched.append(self._dispatch_bucket(queries, qidx, a_max))

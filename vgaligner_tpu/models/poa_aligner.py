@@ -1,6 +1,6 @@
 """Chain -> subgraph extraction -> partial-order alignment -> GAF.
 
-Behavioral reference: /root/reference/src/align.rs.
+Behavioral reference: rs-vgaligner src/align.rs.
 
   * find_range_chain (align.rs:267-402): anchor endpoint handles -> the
     contiguous node-id range in the chain's orientation(s);
@@ -926,8 +926,7 @@ class PoaAligner:
         # dispatch every bucket before any host sync: kernels queue on
         # device back-to-back, then one fetch pass drains them.  On the
         # wire path, chunk buffers are PREPARED per bucket but uploaded
-        # in one device_put for the whole drain (the link charges a
-        # fixed round trip per upload on top of bytes/bandwidth).
+        # in one device_put for the whole drain.
         from ..ops.poa_device import (
             kernel_dispatch_chunked,
             kernel_launch_wires,

@@ -11,8 +11,8 @@ derivation, subgraph extraction) for batch N+1:
     map N -> dispatch POA N -> [device computes N] || [host maps N+1]
           -> drain POA N -> dispatch POA N+1 -> ...
 
-On the high-latency transport this hides most of the host work and the
-result transfers behind device compute.  Memory stays bounded by the
+This hides host work and result transfers behind device compute.
+Memory stays bounded by the
 batch size (chains and problem arrays for at most two batches are
 live), so read streams of any length can be processed.
 
@@ -59,11 +59,9 @@ def stream_map_align(
     if n == 0:
         return
 
-    # The transport executes lazily (device work runs when results are
-    # FETCHED, not when dispatched), so overlapping requires the drain
-    # itself to move off the main thread: finish_alignments(batch N)
-    # blocks in device_get — GIL released — while the main thread does
-    # batch N+1's host mapping.  Emission order is preserved by joining
+    # The drain moves off the main thread: finish_alignments(batch N)
+    # blocks in device_get and in native decode — GIL released — while
+    # the main thread does batch N+1's host mapping.  Emission order is preserved by joining
     # the worker before the next batch's drain starts.
     use_async = os.environ.get("VGALIGNER_STREAM_ASYNC", "1") != "0"
 

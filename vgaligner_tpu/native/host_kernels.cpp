@@ -1,4 +1,4 @@
-// TPU-native host runtime kernels for vgaligner_tpu.
+// Native host runtime kernels for vgaligner_tpu.
 //
 // The device side of the framework is JAX/XLA (chaining DP, POA DP);
 // this library is the native host runtime around it, replacing the
@@ -2166,8 +2166,7 @@ int64_t vg_backtrack_delta(
 // (6 bits), code 1..61 = vid delta + 31, code 62 = exception whose
 // absolute vid rides (excpos, excval), sorted by flat position.  One
 // serial pass per row into caller-allocated (ops, vids) buffers — the
-// numpy reconstruction needs ~6 full-matrix passes, which on the
-// 1-core deployment would eat most of the bytes-halved link win.
+// numpy reconstruction needs ~6 full-matrix passes.
 int64_t vg_decode_tape_u8(
     int64_t B, int64_t T, const uint8_t* tape /* [B*T] */,
     const int32_t* starts /* [B] */,

@@ -1,21 +1,21 @@
 """The chaining DP as a device kernel (lax.scan + vectorized window).
 
 Behavioral reference: chain_anchors / score_anchor
-(/root/reference/src/chain.rs:274-655).  The reference runs, per read, a
+(rs-vgaligner src/chain.rs:274-655).  The reference runs, per read, a
 scalar double loop: for each anchor i, score the previous `bandwidth`
 anchors j and keep the best strictly-improving predecessor, while
 tracking the global best proposed score `curr_max`; backtracking then
 extracts exactly the chains whose final score equals `curr_max`
 (chain.rs:469).
 
-TPU-native formulation:
+Device formulation:
   * anchors are sorted by target_end ascending with a *stable* sort (the
     reference sorts by (orient desc, target_end asc), chain.rs:386-389;
     the production forward-only path makes the orient key constant, so
     stable-by-target_end is exact);
   * one lax.scan step per anchor i; the bandwidth-50 predecessor window
     is a dynamic_slice over the carried f-array and scored as one masked
-    f64 vector op (VPU lane-parallel), batched over reads via vmap;
+    f64 vector op, batched over reads via vmap;
   * the gap cost 0.01*k*g + 0.5*log2(g) (chain.rs:348-354) is a host-
     precomputed f64 table indexed by gap length — bit-identical to CPU
     libm and free of device transcendentals;
@@ -90,8 +90,8 @@ def chain_scores(
       * "exact" — f64, the reference's exact op sequence (bit-identical
         scores on IEEE backends; the parity mode);
       * "fast" — f32 with scores pre-scaled by 1000 so every value is an
-        exactly-representable integer (< 2^24): no division, no f64
-        emulation on TPU.  Gap costs are f32-rounded, so proposals within
+        exactly-representable integer (< 2^24): no division and no
+        f64.  Gap costs are f32-rounded, so proposals within
         ~0.01 milli-units of a rounding boundary may differ from exact
         mode — chains can differ only at such ties.  f/curr_max are
         returned in the scaled domain (consistent for the == test).
@@ -165,7 +165,7 @@ def chain_scores(
 
         (f_fin, curr_max), preds = jax.lax.scan(
             step, (f0, jnp.float64(0.0)), jnp.arange(1, A, dtype=jnp.int32),
-            unroll=8,  # amortize per-step dispatch overhead on TPU
+            unroll=8,
         )
         preds = jnp.concatenate([jnp.full((1,), -1, jnp.int32), preds])
         return f_fin, preds, curr_max
@@ -179,8 +179,8 @@ def chain_scores(
 
 # Degree-7 polynomial for log2(x) on [1, 2), least-squares fit; max abs
 # error 1.75e-6 over the full mantissa range.  Evaluated with plain f32
-# multiply/add (IEEE-rounded per op on every XLA backend and in Mosaic),
-# so the SAME bits come out on CPU, TPU, and inside Pallas kernels —
+# multiply/add (IEEE-rounded per op on every XLA backend),
+# so the SAME bits come out on every XLA backend —
 # unlike jnp.log2, whose implementation is backend-defined.
 _LOG2_COEF = (
     8.121406e-07, 1.4426336, -0.72020257, 0.47172138,
@@ -211,10 +211,8 @@ def gap_cost_scaled_i32(gap, seed_length: int):
     becomes pure integer arithmetic (no per-step float rounding, exact
     up to 2^31 instead of f32's 2^24) and, wherever the poly-rounded
     integer equals the f64 table's (verified exhaustively for every
-    g <= 1000 in test_chain_pallas), fast-mode scores equal exact-mode
-    scores times 1000.  A table gather would be semantically cleaner
-    but costs ~10x the DP on TPU and cannot be vectorized inside a
-    Pallas kernel (per-lane dynamic indexing)."""
+    g <= 1000 in test_chain.py), fast-mode scores equal exact-mode
+    scores times 1000."""
     gf = gap.astype(jnp.float32)
     lg = jnp.floor(
         jnp.float32(500.0) * _log2_poly_f32(gf) + jnp.float32(0.5)
@@ -223,22 +221,11 @@ def gap_cost_scaled_i32(gap, seed_length: int):
     return jnp.where(gap == 0, jnp.int32(0), cost)
 
 
-def _use_pallas_chain() -> bool:
-    import os
-
-    if os.environ.get("VGALIGNER_CHAIN_PALLAS") == "0":
-        return False
-    return jax.default_backend() != "cpu" or (
-        os.environ.get("VGALIGNER_CHAIN_PALLAS") == "1"
-    )
-
-
 def _chain_scores_fast(qb, tb, te, valid, gap_table, seed_length, bandwidth):
     """Scaled-integer (i32) variant of the DP (see chain_scores
     docstring).  Anchors are fixed-length k-mers (qe = qb + k), so the
     reference's min(qb_i-qb_j, qe_i-qe_j) collapses to qb_i-qb_j and
-    the qe_j >= qe_i overlap test to qb_j >= qb_i — the simplification
-    is applied identically in this scan and the Pallas kernel."""
+    the qe_j >= qe_i overlap test to qb_j >= qb_i."""
     NEGI = jnp.int32(-(1 << 30))
     max_gap = int(gap_table.shape[0]) - 1
 
@@ -248,36 +235,6 @@ def _chain_scores_fast(qb, tb, te, valid, gap_table, seed_length, bandwidth):
     tb_s = jnp.take_along_axis(tb, order, axis=1).astype(jnp.int32)
     te_s = jnp.take_along_axis(te, order, axis=1).astype(jnp.int32)
     valid_s = jnp.take_along_axis(valid, order, axis=1)
-
-    B, A = qb_s.shape
-    # caps: the kernel's f scratch is (A+W) x 128 i32 (~8.4 MB at 16k),
-    # and its window/tail-carry geometry needs bandwidth <= CH (wider
-    # bandwidths fall through to the scan below)
-    from .chain_pallas import CH as _CHAIN_CH
-
-    if _use_pallas_chain() and A <= 16384 and bandwidth <= _CHAIN_CH:
-        from .chain_pallas import chain_dp_pallas
-
-        b_pad = ((B + 127) // 128) * 128
-        a_pad = ((A + 63) // 64) * 64  # anchor-chunk granularity (CH)
-
-        def padba(x, fill):
-            return jnp.pad(
-                x, ((0, b_pad - B), (0, a_pad - A)), constant_values=fill
-            )
-
-        with jax.enable_x64(False):  # kernel is pure i32/f32
-            f, pred, curr_max = chain_dp_pallas(
-                padba(qb_s.astype(jnp.int32), 0), padba(tb_s, 0),
-                padba(te_s, 0), padba(valid_s, False),
-                seed_length, bandwidth, max_gap,
-                interpret=jax.default_backend() == "cpu",
-            )
-        return ChainScores(
-            order=order, qb=qb_s, tb=tb_s.astype(jnp.int64),
-            te=te_s.astype(jnp.int64), valid=valid_s,
-            f=f[:B, :A], pred=pred[:B, :A], curr_max=curr_max[:B],
-        )
 
     k_i = jnp.int32(seed_length * 1000)
 
@@ -324,7 +281,7 @@ def _chain_scores_fast(qb, tb, te, valid, gap_table, seed_length, bandwidth):
 
         (f_fin, curr_max), preds = jax.lax.scan(
             step, (f0, jnp.int32(0)), jnp.arange(1, A, dtype=jnp.int32),
-            unroll=8,  # amortize per-step dispatch overhead on TPU
+            unroll=8,
         )
         preds = jnp.concatenate([jnp.full((1,), -1, jnp.int32), preds])
         return f_fin, preds, curr_max

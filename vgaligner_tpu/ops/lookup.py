@@ -1,6 +1,6 @@
 """Device-side k-mer lookup and anchor materialization.
 
-Behavioral reference: anchors_for_query (/root/reference/src/chain.rs:
+Behavioral reference: anchors_for_query (rs-vgaligner src/chain.rs:
 134-173) + find_positions_for_query_kmer (index.rs:353-382).  The
 reference does, per query k-mer: a hash, an O(n_kmers) membership scan,
 an MPHF probe, and a delimiter walk.  Here the whole batch does one
@@ -73,10 +73,8 @@ def lookup_and_materialize_anchors(
 
     # slot a -> (kmer window w, within-kmer position): window w's anchors
     # occupy slots [cum[w-1], cum[w]), so the owning window of slot s is
-    # the count of windows with cum[w] <= s.  The [B, W, A] compare +
-    # reduce is pure VPU lane work (~124M int ops on the bench shape, a
-    # few ms); the scatter-max + cummax formulation it replaces measured
-    # ~33 ms — TPU scatters cost ~10x a dense reduction here.
+    # the count of windows with cum[w] <= s: a dense [B, W, A] compare +
+    # reduce in place of a scatter-max + cummax formulation.
     B, W = counts.shape
     cum_prev = cum - counts  # run start per window
     slots = jnp.arange(a_max, dtype=jnp.int32)

@@ -12,8 +12,8 @@ The subgraph ("abstraction nodes" + 0-based edges, align.rs:670-724) is
 expanded to a base-level DAG whose vertices are single bases; the DP runs
 over vertices in topological order.  This module provides the host
 (numpy) implementations — the behavioral oracle and the --also-align
-production path; the Pallas/JAX anti-diagonal wavefront kernel batches
-the same recurrence on device (see poa_device.py).
+production path; the device DP (poa_device.py: an XLA scan, and a CUDA
+kernel on NVIDIA GPUs) batches the same recurrence.
 
 Exact note: the reference's numbers come from a specific abPOA build; we
 reproduce the algorithm and scoring defaults, not the C library bit for

@@ -3,9 +3,9 @@
 The reference is a single-process, single-threaded CLI (its rayon
 parallelism is compiled out — SURVEY.md §2.3, kmer.rs:13-14,
 index_main.rs:63-69); its per-read loop (map.rs:56-111) is the unit of
-parallelism.  The TPU-native design distributes that loop:
+parallelism.  The device design distributes that loop:
 
-  * 1-D mesh over a `data` axis (chips × hosts flattened);
+  * 1-D mesh over a `data` axis (devices × hosts flattened);
   * the index (DeviceIndex arrays) is *replicated* — HLA-scale indexes
     are MBs; offset-sharding of the position table over the mesh is the
     planned path for pangenome-scale graphs;

@@ -4,7 +4,7 @@ Behavioral reference: /root/reference/src/dna.rs:5-40 (reverse_complement,
 switch_base, is_dna). The reference panics on non-DNA characters; we raise
 ValueError with the same trigger set.
 
-The 2-bit encoding (A=0, C=1, G=2, T=3) is the TPU-native replacement for
+The 2-bit encoding (A=0, C=1, G=2, T=3) is the device replacement for
 string k-mers: because ASCII order A < C < G < T matches code order, sorting
 k-mer strings lexicographically (kmer.rs:295-298) is equivalent to sorting
 fixed-width 2k-bit integer codes, which is what the device-side index relies

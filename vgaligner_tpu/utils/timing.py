@@ -3,7 +3,7 @@
 Reference analog: the Instant-based wall-clock phase timers around k-mer
 generation/conversion (index.rs:161-172,212-224), chaining (map.rs:47,112)
 and alignment substeps (align.rs:68-98).  Unlike the reference's
-unconditional println! debugging (which would destroy TPU throughput),
+unconditional println! debugging (which would destroy device throughput),
 everything here is opt-in via logging level or explicit collection.
 """
 
